@@ -1,18 +1,21 @@
-"""brotli_tpu — a TPU-native Brotli (RFC 7932) encoder/decoder framework.
+"""brotli_tpu — a batched Brotli (RFC 7932) encoder/decoder in JAX.
 
-Built from scratch in JAX/Pallas with the full capability surface of the
-reference TypeScript library (countertype/brotli-lib): one-shot and streaming
-encode across qualities 0-11, full-format decode with static/custom
-dictionaries, plus what the reference does not have — batched device
-execution and multi-chip/multi-host scaling over a `jax.sharding.Mesh`.
+Built from scratch with the full capability surface of the reference
+TypeScript library (countertype/brotli-lib): one-shot and streaming encode
+across qualities 0-11, full-format decode with static/custom dictionaries,
+plus what the reference does not have — batched device execution on a GPU
+(a CUDA batch decoder, an XLA encoder) and data parallelism over the
+devices of one host.
 
 Layout:
   constants.py  — RFC format tables, shared by both pipelines
-  decode/       — decoder: host golden path + Pallas lockstep kernels
+  corpus.py     — seeded synthetic inputs for tests, bench and tools
+  decode/       — decoder: python golden path + the native host decoder
   encode/       — encoder: quality-tiered pipelines
-  ops/          — JAX/Pallas device kernels (bit I/O, Huffman, hashing, ...)
-  parallel/     — mesh sharding, dictionary broadcast, ordered gather
-  utils/        — profiling/bench helpers
+  native/       — C++/CUDA: the decoder core shared by host and GPU
+  ops/          — device code: batch decode custom call, device encoder
+  parallel/     — data parallelism over a device mesh, dictionary broadcast
+  utils/        — profiling/bench helpers, compile cache
 """
 
 from .decode import decode, decoded_size, BrotliError
@@ -21,7 +24,7 @@ from .encode.sharded import encode_sharded, encode_sharded_concat
 
 
 def encode_sharded_device(data, **kw):
-    """TPU device encoder: sort-based parallel encode of <=1024 chunks
+    """Device encoder: sort-based parallel encode of <=1024 chunks
     (ops/device_encode.py). Lazy import keeps JAX off the critical path."""
     from .ops.device_encode import encode_device_batch
 

@@ -2,9 +2,9 @@
 
 Design differs from the reference's 16-bit-half accumulator machine
 (engine.ts:1805-1833): we precompute the input as 32-bit little-endian words
-and index directly by absolute bit position.  This mirrors the layout the
-Pallas decode kernel uses (u32 lanes + shift/mask extraction), so the host
-path and the device kernel share one addressing scheme.
+and index directly by absolute bit position.  Its end-of-input rule (zero
+padding, -10 two words past the end) is the one the decoder core
+(native/brotli_core.h) follows, so every decoder fails the same way.
 """
 
 from __future__ import annotations

@@ -3,14 +3,15 @@
 This is the framework's reference-grade decoder: it decodes the full format
 (all window sizes incl. large-window extension, metadata/uncompressed blocks,
 context maps, static + compound dictionaries) and anchors every other
-component — the encoder's round-trip tests and the Pallas lockstep decode
-kernel are validated against it, and it bootstraps the static dictionary.
+component — the encoder's round-trip tests and the decoder core shared by
+the native host decoder and the GPU batch kernel (native/brotli_core.h) are
+validated against it, and it bootstraps the static dictionary.
 
 Architectural choices vs the reference (engine.ts):
   * batch decoder: the whole output lives in one buffer, so there is no ring
     buffer, no output fences, and no resumable state machine — back-references
     are plain slices because distances never exceed min(pos, window-16);
-  * tables are flat int32 lists shared bit-for-bit with the TPU kernel layout.
+  * tables are flat int32 lists in the same layout as the decoder core's.
 
 Behavioral parity notes cite /root/reference/src/decode/engine.ts.
 """

@@ -6,8 +6,8 @@ Table entries are packed int32 ``(nbits << 16) | payload``:
     offset from the table base to the subtable (minus the root slot index)
   * leaf in subtable:   nbits = code_len - root_bits, payload = symbol
 
-This single-int32 packing is chosen because it is exactly what the Pallas
-decode kernel gathers from VMEM — host and device share the layout.
+The decoder core (native/brotli_core.h) builds the same packing, in device
+memory on the GPU — host and device share the layout.
 Behavioral contract follows RFC 7932 sections 3.2-3.5 (reference:
 engine.ts:1704-1762 buildHuffmanTable, 382-487 simple/complex readers).
 """

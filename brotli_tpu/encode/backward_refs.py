@@ -40,9 +40,8 @@ def create_backward_references(
     decoder's window clamp (1<<lgwin)-16 so emitted distances land in the
     dictionary address space.
 
-    max_match_distance caps LZ match distances below the format window —
-    used by the sharded TPU layout so every emitted distance fits the
-    device resolve kernel's VMEM history ring (ops/pallas_resolve.py).
+    max_match_distance optionally caps LZ match distances below the format
+    window (encode_sharded's `max_distance`).
 
     max_window overrides the reference's lgwin-independent (1<<22)-16 quirk
     (backward-references.ts:31) — the lgwin-honoring mode SURVEY section 5

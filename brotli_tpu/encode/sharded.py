@@ -1,4 +1,4 @@
-"""Shared-table sharded encode: the TPU-throughput encoding layout.
+"""Shared-table sharded encode: one table set for a batch of chunks.
 
 Splits an input into fixed-size chunks and encodes each as an independent
 Brotli stream (or as splice-able fragments of one stream), with ONE set of
@@ -7,11 +7,9 @@ identically in every chunk's metablock.  This is valid RFC 7932 output —
 each metablock always carries its own tree description — the tables are
 simply chosen once for all chunks instead of per chunk.
 
-Why: the Pallas lockstep decoder (ops/pallas_decode2.py) decodes 1024
-streams in SIMD lockstep; per-element Huffman lookups are only cheap on the
-VPU when all lanes share the same table (row-replicated table vregs +
-`tpu.dynamic_gather` along lanes).  Shared tables turn every per-lane
-lookup into a handful of vector ops instead of an O(table) one-hot sweep.
+Why: one table set serves every chunk of a batch (one header to build, one
+entropy model); the chunks stay independent streams that any decoder,
+including the batch decoder (ops/batch_decode.py), takes one per lane.
 
 Cost: a few hundred bytes of repeated tree headers per chunk plus slightly
 suboptimal per-chunk code lengths — negligible at 16-64 KB chunks.
@@ -166,12 +164,10 @@ def encode_sharded(
 
     Returns one standalone Brotli stream per chunk; all chunks carry
     bit-identical Huffman tree declarations (decode-side table sharing).
-    Any standard Brotli decoder round-trips each chunk; our device decoder
-    decodes the whole list in lockstep.
+    Any standard Brotli decoder round-trips each chunk; the batch decoder
+    (ops/batch_decode.py) decodes the whole list in one launch.
 
-    max_distance caps match distances (still standard RFC 7932 output);
-    pass ops.pallas_resolve.MAX_DEVICE_DISTANCE to keep every stream
-    resolvable by the on-device LZ kernel's VMEM history window.
+    max_distance caps match distances (still standard RFC 7932 output).
     """
     data = bytes(data)
     params = make_params(quality, lgwin, None, min(len(data), chunk_size))

@@ -1,75 +1,105 @@
-"""Native (C++) runtime components, built on first use and loaded via ctypes.
+"""Native components, built from the committed sources on first use.
 
-The TPU owns the compute path (JAX/Pallas); these cover the parts of the
-runtime that are memory- or IO-bound on the host: LZ token resolution
-(phase 2 of device decode) and, later, stream splicing and data loading.
+* `libbrotli_tpu_native.so` (g++, loaded with ctypes): the host decoder,
+  which runs the shared decoder core (brotli_core.h), and the encoder's
+  table builder and context clustering.
+* the batched decode custom call (batch_decode.cu, see ops/batch_decode.py):
+  built with nvcc for the GPU and with g++ for the CPU, from one source.
+
+Outputs go to `native/build/` (listed in .gitignore), stamped with a hash of
+their sources and command so a stale or foreign build is never loaded.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import os
+import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 _DIR = Path(__file__).resolve().parent
+_BUILD = _DIR / "build"
 _LIB: ctypes.CDLL | None = None
 
 
-def _build() -> Path:
-    """Compile the native library, gated on a content hash of the sources.
+def _build(name: str, srcs: list[Path], deps: list[Path], cmd: list[str]) -> Path:
+    """Compile `srcs` into build/`name` unless a matching stamp exists.
 
-    mtime comparison is unreliable (git checkouts don't preserve mtimes) and
-    a stale committed binary built with -march=native elsewhere can SIGILL;
-    the hash stamp guarantees the loaded .so matches the checked-out sources
-    and was built on this host.
+    The stamp hashes sources, headers and the command: mtimes are unreliable
+    in fresh checkouts, and a binary built with -march=native on another
+    host can SIGILL.  The output is written under a unique name and renamed
+    into place, so concurrent builders never load a half-written file.
     """
-    srcs = [_DIR / "lz_resolve.cpp", _DIR / "decoder.cpp",
-            _DIR / "table_builder.cpp"]
-    out = _DIR / "libbrotli_tpu_native.so"
-    stamp = _DIR / ".native_build_hash"
-    h = hashlib.sha256()
-    for s in srcs:
+    _BUILD.mkdir(exist_ok=True)
+    out = _BUILD / name
+    stamp = _BUILD / (name + ".hash")
+    h = hashlib.sha256(" ".join(cmd).encode())
+    for s in (*srcs, *deps):
         h.update(s.read_bytes())
     digest = h.hexdigest()
     if out.exists() and stamp.exists() and stamp.read_text().strip() == digest:
         return out
-    cmd = [
-        "g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
-        "-o", str(out), *map(str, srcs), "-lpthread",
-    ]
-    subprocess.run(cmd, check=True, capture_output=True)
+    fd, tmp = tempfile.mkstemp(dir=_BUILD, suffix=".so")
+    os.close(fd)
+    try:
+        r = subprocess.run([*cmd, "-o", tmp, *map(str, srcs)],
+                           capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"building {name} failed:\n{r.stderr[-4000:]}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
     stamp.write_text(digest)
     return out
+
+
+def build_host_lib() -> Path:
+    return _build(
+        "libbrotli_tpu_native.so",
+        [_DIR / "decoder.cpp", _DIR / "table_builder.cpp"],
+        [_DIR / "brotli_core.h"],
+        ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
+         "-lpthread"],
+    )
+
+
+def _ffi_include() -> str:
+    import jax.ffi
+
+    return str(jax.ffi.include_dir())
+
+
+def build_ffi_lib(platform: str) -> Path:
+    """The batched decode custom call for `platform` ("cpu" or "cuda")."""
+    src = [_DIR / "batch_decode.cu"]
+    deps = [_DIR / "brotli_core.h"]
+    inc = ["-I", _ffi_include(), "-I", str(_DIR)]
+    if platform == "cpu":
+        return _build("libbrotli_batch_cpu.so", src, deps,
+                      ["g++", "-x", "c++", "-O3", "-std=c++17", "-shared",
+                       "-fPIC", "-w", *inc])
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    nvcc = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
+    return _build("libbrotli_batch_cuda.so", src, deps,
+                  [nvcc, "-O3", "-std=c++17", "-shared",
+                   "-gencode", "arch=compute_90a,code=sm_90a",
+                   "-Xcompiler", "-fPIC", "-w", *inc])
 
 
 def get_lib() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(_build()))
-        fn = lib.lz_resolve_batch_v2
-        fn.restype = ctypes.c_int
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int,
-        ]
-        pf = lib.brotli_native_preflight_batch
-        pf.restype = ctypes.c_int
-        pf.argtypes = (
-            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64]
-            + [ctypes.c_void_p] * 4
-            + [ctypes.c_void_p] * 6
-        )
-        dec = lib.brotli_native_decode
+        lib = ctypes.CDLL(str(build_host_lib()))
+        dec = lib.brotli_core_decode
         dec.restype = ctypes.c_int
         dec.argtypes = (
-            [ctypes.c_void_p, ctypes.c_int64]
-            + [ctypes.c_void_p] * 12
-            + [ctypes.c_void_p, ctypes.c_int64]
-            + [ctypes.c_void_p] * 3 + [ctypes.c_int32]
-            + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32]
-            + [ctypes.c_int32]
-            + [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
+            [ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_void_p] * 4
+            + [ctypes.c_int64, ctypes.c_int32, ctypes.c_void_p, ctypes.c_int64,
+               ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
         )
         bh = lib.native_build_huffman_code
         bh.restype = None
@@ -126,80 +156,26 @@ def cluster_context_map_native(hists, rows: int, syms: int):
     return int(n), cmap.astype(np.int64).tolist()
 
 
-def lz_resolve_batch_v2(tokens, expected_lens, n_threads: int = 8):
-    """Resolve (n_rows, n_lanes) u32 v2 tokens -> (n_lanes, cap) u8 outputs.
-
-    `expected_lens[lane]` is the decoded size (known from the metablock
-    header); resolution stops there. Returns (out, lens) where
-    lens[lane] == -1 marks a malformed lane.  Token format:
-    ops/pallas_decode2.py module docstring.
-    """
-    import numpy as np
-
-    tokens = np.ascontiguousarray(tokens, dtype=np.uint32)
-    n_rows, n_lanes = tokens.shape
-    lens = np.asarray(expected_lens, dtype=np.int64).copy()
-    assert lens.shape == (n_lanes,)
-    cap = max(1, int(lens.max()))
-    out = np.zeros((n_lanes, cap), dtype=np.uint8)
-    lib = get_lib()
-    lib.lz_resolve_batch_v2(
-        tokens.ctypes.data_as(ctypes.c_void_p),
-        n_rows, n_lanes,
-        out.ctypes.data_as(ctypes.c_void_p),
-        cap,
-        lens.ctypes.data_as(ctypes.c_void_p),
-        n_threads,
-    )
-    return out, lens
-
-
-def preflight_batch_native(streams):
-    """Parse all streams' headers + first-metablock tables in one native
-    call; returns (scalars (n,8) i64, lit (n,630), cmd (n,1080),
-    dist (n,920), dist_extra (n,544), dist_offset (n,544)).
-
-    scalars rows: [eligible, mlen, cmd_start_bit, npostfix, ndirect,
-    wbits, 0, 0] — eligible means v2-device-eligible (single compressed
-    ISLAST metablock, trivial entropy layout)."""
-    import numpy as np
-
-    lib = get_lib()
-    T = _decoder_tables()
-    n = len(streams)
-    data = np.frombuffer(b"".join(streams) + b"\x00", dtype=np.uint8)
-    offsets = np.zeros(n + 1, np.int64)
-    for i, s in enumerate(streams):
-        offsets[i + 1] = offsets[i] + len(s)
-    lit = np.zeros((n, 630), np.int32)
-    cmd = np.zeros((n, 1080), np.int32)
-    dist = np.zeros((n, 920), np.int32)
-    dxe = np.zeros((n, 544), np.int32)
-    dxo = np.zeros((n, 544), np.int32)
-    scal = np.zeros((n, 8), np.int64)
-    p = ctypes.c_void_p
-    lib.brotli_native_preflight_batch(
-        data.ctypes.data_as(p), offsets.ctypes.data_as(p), n,
-        T["blen_nbits"].ctypes.data_as(p), T["blen_offset"].ctypes.data_as(p),
-        T["clc_order"].ctypes.data_as(p), T["clc_lengths"].ctypes.data_as(p),
-        lit.ctypes.data_as(p), cmd.ctypes.data_as(p), dist.ctypes.data_as(p),
-        dxe.ctypes.data_as(p), dxo.ctypes.data_as(p),
-        scal.ctypes.data_as(p),
-    )
-    return scal, lit, cmd, dist, dxe, dxo
-
-
 # ---------------------------------------------------------------------------
-# native host decoder (decoder.cpp)
+# decoder core inputs (brotli_core.h) and the host decoder
 # ---------------------------------------------------------------------------
 
-_DEC_TABLES = None
+# Default table arena for one lane (int32 words): the fixed region plus
+# room for 16 literal, 8 command and 8 distance trees.  A metablock that
+# needs more reports ERR_ARENA_CAP with its exact need.
+ERR_OUT_CAP = -1000
+ERR_ARENA_CAP = -1001
+ARENA_FIXED = 10773
+ARENA_DEFAULT = ARENA_FIXED + 16 * 631 + 8 * 1081 + 8 * 921
+
+_CORE_TABLES = None
 
 
-def _decoder_tables():
-    """Flat ctypes-ready format tables (single source of truth: constants.py)."""
-    global _DEC_TABLES
-    if _DEC_TABLES is None:
+def core_tables():
+    """(packed int32 tables, static dictionary u8, transform strings u8) in
+    the layout brotli_core.h expects (single source of truth: constants.py)."""
+    global _CORE_TABLES
+    if _CORE_TABLES is None:
         import numpy as np
 
         from ..constants import (
@@ -222,76 +198,76 @@ def _decoder_tables():
             spans[i, 2] = len(storage); spans[i, 3] = len(suf)
             storage.extend(suf)
             ops[i] = op
+        parts = [
+            INSERT_LENGTH_N_BITS, INSERT_LENGTH_OFFSET,
+            COPY_LENGTH_N_BITS, COPY_LENGTH_OFFSET,
+            BLOCK_LENGTH_N_BITS, BLOCK_LENGTH_OFFSET,
+            np.asarray(CMD_LUT).reshape(-1), _CONTEXT_LUT,
+            CODE_LENGTH_CODE_ORDER, CODE_LENGTH_CODE_LENGTHS,
+            (DICT_OFFSETS_BY_LENGTH, 32), (DICT_SIZE_BITS_BY_LENGTH, 32),
+            spans.reshape(-1), ops,
+        ]
 
-        def i32(x):
-            return np.ascontiguousarray(np.asarray(x, dtype=np.int32))
+        def i32(part):
+            x, n = part if isinstance(part, tuple) else (part, None)
+            x = np.asarray(x, np.int32).reshape(-1)
+            return x if n is None else np.pad(x, (0, n - x.size))
 
-        _DEC_TABLES = dict(
-            ins_nbits=i32(INSERT_LENGTH_N_BITS), ins_offset=i32(INSERT_LENGTH_OFFSET),
-            cp_nbits=i32(COPY_LENGTH_N_BITS), cp_offset=i32(COPY_LENGTH_OFFSET),
-            blen_nbits=i32(BLOCK_LENGTH_N_BITS), blen_offset=i32(BLOCK_LENGTH_OFFSET),
-            cmd_lut=i32(CMD_LUT).reshape(-1), context_lut=i32(_CONTEXT_LUT),
-            clc_order=i32(CODE_LENGTH_CODE_ORDER), clc_lengths=i32(CODE_LENGTH_CODE_LENGTHS),
-            dict_offsets=i32(DICT_OFFSETS_BY_LENGTH), dict_sizebits=i32(DICT_SIZE_BITS_BY_LENGTH),
-            dict_data=np.frombuffer(get_dictionary(), dtype=np.uint8),
-            tf_spans=spans.reshape(-1), tf_ops=ops,
-            tf_storage=np.frombuffer(bytes(storage) + b"\x00", dtype=np.uint8),
+        packed = np.concatenate([i32(x) for x in parts])
+        assert packed.size == 5705  # brotli_core.h P_TOTAL
+        _CORE_TABLES = (
+            np.ascontiguousarray(packed),
+            np.frombuffer(get_dictionary(), dtype=np.uint8),
+            np.frombuffer(bytes(storage) + b"\x00", dtype=np.uint8),
         )
-    return _DEC_TABLES
+    return _CORE_TABLES
+
+
+def compound_bytes(custom_dictionary) -> bytes:
+    """Custom/compound dictionary chunks as one buffer (at most 15 chunks)."""
+    from ..decode.bitreader import BrotliError
+
+    if custom_dictionary is None:
+        return b""
+    if isinstance(custom_dictionary, (bytes, bytearray, memoryview)):
+        return bytes(custom_dictionary)
+    chunks = [bytes(c) for c in custom_dictionary]
+    if len(chunks) > 15:
+        raise BrotliError(-27, "too many dictionary chunks")
+    return b"".join(chunks)
 
 
 def native_decode(data: bytes, custom_dictionary=None,
                   large_window: bool = False) -> bytes:
-    """Decode via the C++ host decoder; raises BrotliError on failure."""
+    """Decode one stream with the decoder core on the host; raises
+    BrotliError on failure.  Output and arena grow on the core's request."""
     import numpy as np
 
     from ..decode.bitreader import BrotliError
 
     lib = get_lib()
-    if not hasattr(lib, "brotli_native_decode"):
-        raise RuntimeError("native decoder missing")
-    T = _decoder_tables()
-
-    cd_chunks = []
-    if custom_dictionary is not None:
-        cd_chunks = (
-            [bytes(custom_dictionary)]
-            if isinstance(custom_dictionary, (bytes, bytearray, memoryview))
-            else [bytes(c) for c in custom_dictionary]
-        )
-        if len(cd_chunks) > 15:
-            raise BrotliError(-27, "too many dictionary chunks")
-    cd_data = np.frombuffer(b"".join(cd_chunks) + b"\x00", dtype=np.uint8)
-    cd_offsets = np.zeros(len(cd_chunks) + 1, dtype=np.int64)
-    for i, c in enumerate(cd_chunks):
-        cd_offsets[i + 1] = cd_offsets[i] + len(c)
-
+    packed, dict_data, tf_storage = core_tables()
+    cd = np.frombuffer(compound_bytes(custom_dictionary) + b"\x00", np.uint8)
     buf = np.frombuffer(bytes(data) + b"\x00", dtype=np.uint8)
     cap = max(len(data) * 6 + (1 << 20), 1 << 16)
-    for _ in range(4):
-        out = np.zeros(cap, dtype=np.uint8)
-        out_len = ctypes.c_int64(0)
-        p = ctypes.c_void_p
-        rc = lib.brotli_native_decode(
-            buf.ctypes.data_as(p), len(data),
-            T["ins_nbits"].ctypes.data_as(p), T["ins_offset"].ctypes.data_as(p),
-            T["cp_nbits"].ctypes.data_as(p), T["cp_offset"].ctypes.data_as(p),
-            T["blen_nbits"].ctypes.data_as(p), T["blen_offset"].ctypes.data_as(p),
-            T["cmd_lut"].ctypes.data_as(p), T["context_lut"].ctypes.data_as(p),
-            T["clc_order"].ctypes.data_as(p), T["clc_lengths"].ctypes.data_as(p),
-            T["dict_offsets"].ctypes.data_as(p), T["dict_sizebits"].ctypes.data_as(p),
-            T["dict_data"].ctypes.data_as(p), len(T["dict_data"]),
-            T["tf_spans"].ctypes.data_as(p), T["tf_ops"].ctypes.data_as(p),
-            T["tf_storage"].ctypes.data_as(p), len(T["tf_ops"]),
-            cd_data.ctypes.data_as(p), cd_offsets.ctypes.data_as(p),
-            len(cd_chunks),
-            1 if large_window else 0,
-            out.ctypes.data_as(p), cap, ctypes.byref(out_len),
+    arena_cap = ARENA_DEFAULT
+    p = ctypes.c_void_p
+    while True:
+        out = np.empty(cap, dtype=np.uint8)
+        arena = np.empty(arena_cap, dtype=np.int32)
+        size = ctypes.c_int64(0)
+        rc = lib.brotli_core_decode(
+            buf.ctypes.data_as(p), len(data), packed.ctypes.data_as(p),
+            dict_data.ctypes.data_as(p), tf_storage.ctypes.data_as(p),
+            cd.ctypes.data_as(p), len(cd) - 1, 1 if large_window else 0,
+            out.ctypes.data_as(p), cap, arena.ctypes.data_as(p), arena_cap,
+            ctypes.byref(size),
         )
-        if rc == -1000:
-            cap = max(cap * 2, int(out_len.value) + 64)
-            continue
-        if rc != 0:
+        if rc == ERR_OUT_CAP:
+            cap = max(cap * 2, int(size.value))
+        elif rc == ERR_ARENA_CAP:
+            arena_cap = int(size.value)
+        elif rc != 0:
             raise BrotliError(rc)
-        return out[: out_len.value].tobytes()
-    raise BrotliError(-1, "output capacity retry exhausted")
+        else:
+            return out[: size.value].tobytes()

@@ -1,6 +1,6 @@
 // Native Huffman table construction + histogram clustering for the device
 // encoder's per-batch table build (the host-side step between the XLA
-// stages and the Pallas pack kernel).
+// stages and the bit pack).
 //
 // Exact ports of encode/entropy.py (create_huffman_depths - the
 // count-limit-retry tree build, reference entropy-encode.ts:24-131) and

@@ -1,1 +1,1 @@
-"""JAX/Pallas device kernels: batched decode, bit packing, hashing, histograms."""
+"""Device code: the GPU batch decoder and the XLA device encoder."""

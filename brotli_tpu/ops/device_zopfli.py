@@ -177,7 +177,8 @@ def _build_dp(N: int, B: int, max_zlen: int, maxbw: int):
             clen = nlen[pos] & 0x1FFFFFF
             ilen = ndci[pos] & 0x7FFFFFF
             dist = ndist[pos]
-            short_f = ndci[pos] >> 27
+            # logical shift: short code 16 sets the int32 sign bit
+            short_f = jax.lax.shift_right_logical(ndci[pos], jnp.int32(27))
             dcode_pos = jnp.where(short_f == 0, dist + 15, short_f - 1)
             sc_ok = (
                 (dist + clen <= pos) & (dist <= MAX_BACKWARD_LIMIT)
@@ -462,7 +463,7 @@ def zopfli_commands_device(data: bytes, quality: int = 10):
         node = ZopfliNode()
         node.length = int(nlen[i, 0])
         node.distance = int(ndist[i, 0])
-        node.dcode_insert_length = int(ndci[i, 0])
+        node.dcode_insert_length = int(ndci[i, 0]) & 0xFFFFFFFF
         node.cost = float(cost[i, 0])
         node.shortcut = int(nsc[i, 0])
         nodes.append(node)

@@ -1,7 +1,8 @@
-"""Multi-chip / multi-host scaling: mesh-sharded batch decode, parallel
-metablock-sharded encode, dictionary broadcast, ordered gather."""
+"""Multi-device scaling: data-parallel batch decode and encode over the
+devices of one host, metablock-sharded encode, dictionary broadcast."""
 
-from .mesh import get_mesh, sharded_decode_batch
+from .mesh import decode_batches_multichip, encode_batches_multichip, get_mesh
 from .shard import parallel_encode, shard_file
 
-__all__ = ["get_mesh", "sharded_decode_batch", "parallel_encode", "shard_file"]
+__all__ = ["get_mesh", "decode_batches_multichip", "encode_batches_multichip",
+           "parallel_encode", "shard_file"]

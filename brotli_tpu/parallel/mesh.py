@@ -1,10 +1,10 @@
-"""Device-mesh scaling for batched decode.
+"""Data parallelism over the devices of one host.
 
-The batch codec is pure data-parallel over streams (SURVEY.md section 2.3):
-inputs are sharded on a 1-D `streams` mesh axis, Huffman tables travel with
-their lanes, shared constants (the 122 KB static dictionary, code tables) are
-replicated, and outputs come back through jit's ordered global-array gather —
-XLA inserts the all-gather over ICI.
+The batch codec is data-parallel over streams (SURVEY.md section 2.3):
+each device decodes or encodes its own contiguous share of the batch, with
+its own copy of the format tables and static dictionary, and results come
+back in input order.  No collective is needed.  The mesh is a 1-D
+`streams` axis over `jax.devices()`.
 """
 
 from __future__ import annotations
@@ -22,64 +22,9 @@ def get_mesh(n_devices: int | None = None, axis_name: str = "streams"):
     return Mesh(np.array(devices), (axis_name,))
 
 
-def _pad_batch(batch, multiple: int):
-    """Pad a preflight batch to a lane-count multiple with dummy lanes."""
-    import copy
-
-    pad = (-len(batch)) % multiple
-    padded = list(batch)
-    for _ in range(pad):
-        dummy = copy.copy(batch[0])
-        dummy.mlen = 0  # lane exits the loop immediately
-        padded.append(dummy)
-    return padded, pad
-
-
-def sharded_decode_batch(streams: list[bytes], mesh=None) -> list[bytes]:
-    """Decode a batch of streams data-parallel over a device mesh.
-
-    Device-eligible streams run in the lockstep kernel with lanes sharded
-    across the mesh; the rest (and error lanes) use the host decoder.
-    """
-    import jax
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    from ..decode import decode as host_decode
-    from ..ops.device_decode import preflight, run_device_batch
-
-    if mesh is None:
-        mesh = get_mesh()
-    n_dev = mesh.devices.size
-
-    pre = [preflight(s) for s in streams]
-    results: list[bytes | None] = [None] * len(streams)
-    device_idx = [i for i, p in enumerate(pre) if p is not None]
-    for i, p in enumerate(pre):
-        if p is None:
-            results[i] = host_decode(streams[i])
-    if device_idx:
-        batch, pad = _pad_batch([pre[i] for i in device_idx], n_dev)
-        shard_spec = NamedSharding(mesh, P("streams"))
-
-        def put(x):
-            return jax.device_put(x, shard_spec)
-
-        outs, lens, errs = run_device_batch(batch, device_put=put)
-        for k, i in enumerate(device_idx):
-            if errs[k]:
-                results[i] = host_decode(streams[i])
-            else:
-                results[i] = bytes(outs[k, : lens[k]])
-    return results  # type: ignore[return-value]
-
-
 def broadcast_dictionary(mesh=None):
-    """Replicate the 122 KB static dictionary across the mesh (HBM-resident).
-
-    Dictionary-referencing device decode lands in a later round; the
-    broadcast path (replicated sharding over ICI) is the scaling-relevant
-    piece and is exercised by the multi-chip dryrun.
-    """
+    """The static dictionary replicated over the mesh: one copy resident on
+    each device (the decode kernel reads it from device memory)."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
@@ -92,114 +37,33 @@ def broadcast_dictionary(mesh=None):
     return jax.device_put(jnp.asarray(data), NamedSharding(mesh, P()))
 
 
-def decode_batches_multichip(
-    streams: list[bytes],
-    mesh=None,
-    *,
-    interpret: bool = False,
-    n_threads: int = 8,
-    group_size: int | None = None,
-    H: int | None = None,
-) -> list[bytes]:
-    """Decode many shared-table streams across all mesh devices.
+def decode_batches_multichip(streams: list[bytes], mesh=None, *, sizes=None,
+                             custom_dictionary=None, interpret: bool = False,
+                             return_devices: bool = False):
+    """Decode a batch across the mesh devices, one contiguous share each.
 
-    The format's scale-out unit is the independent stream (SURVEY.md
-    section 2.3), so multi-chip decode is pure data parallelism: streams are
-    grouped into 1024-lane shared-table batches, batches round-robin over
-    the mesh devices, and each device runs the SAME fully-device-resident
-    pipeline the single-chip bench times — lockstep entropy kernel + LZ
-    resolve kernel (VERDICT r3 #5: no host resolver on this path).
-    Dispatch is overlapped: every device's entropy kernel is launched
-    before any resolve is, then resolves launch as each entropy status
-    row lands (a tiny fetch).  No cross-chip collectives are needed —
-    ordered reassembly is by batch index.  Host fallback covers
-    device-ineligible or error lanes, exactly like the single-chip path.
-    """
-    import jax
-    import jax.numpy as jnp
-
-    from ..decode import decode as host_decode
-    from ..ops import pallas_decode2 as P2
-    from ..ops.pallas_resolve import (
-        DEFAULT_H, FLUSH, get_resolve_kernel, unpack_resolved,
-    )
+    Every device's first launch is dispatched before any result is read, so
+    the devices decode concurrently; results come back in input order.
+    Streams the devices flag are resolved as in `decode_batch` (the host's
+    error, or a counted fallback).  With `return_devices`, also returns the
+    device that held each share's output."""
+    from ..ops.batch_decode import DecodeJob
 
     if mesh is None:
         mesh = get_mesh()
     devices = list(mesh.devices.reshape(-1))
-    H = H or DEFAULT_H
-
-    NS = P2.NSTREAM
-    gs = min(group_size or NS, NS)
-    groups = [streams[i : i + gs] for i in range(0, len(streams), gs)]
-    results: list[bytes | None] = [None] * len(streams)
-
-    # phase 1: preflight every group (host), dispatch its entropy kernel on
-    # its round-robin device (async)
-    pending = []  # (group_idx, batch, n_blocks, device, entropy out)
-    for gi, group in enumerate(groups):
-        batch = P2.preflight_shared(group, rate_sort=True)
-        if batch is None:
-            base = gi * gs
-            sub = P2.decode_batch_pallas2(group, n_threads=n_threads,
-                                          interpret=interpret)
-            for k, out in enumerate(sub):
-                results[base + k] = out
-            continue
-        dev = devices[len(pending) % len(devices)]
-        n_blocks = P2.plan_blocks(batch)
-        kernel = P2.get_kernel(
-            batch.Wpad, P2.DEFAULT_D, P2.DEFAULT_BLOCK_ROWS, n_blocks,
-            batch.npostfix, batch.ndirect, batch.maxbw, interpret,
-            lit_k=batch.lit_k, cmd_k=batch.cmd_k, dist_k=batch.dist_k,
-            dx_k=batch.dx_k,
-        )
-        args = [
-            jax.device_put(jnp.asarray(x), dev)
-            for x in (batch.wt, batch.lit_t, batch.cmd_t, batch.dist_t,
-                      batch.dx_t, batch.consts, batch.scal)
-        ]
-        out = kernel(*args)  # async dispatch per device
-        pending.append((gi, batch, n_blocks, dev, out))
-
-    import numpy as np
-
-    # phase 2: per group, read the entropy status tail (syncs only that
-    # device) and dispatch the resolve kernel on the same device
-    resolving = []  # (group_idx, batch, phases, resolved, n_out_rows)
-    for gi, batch, n_blocks, dev, out in pending:
-        rows = n_blocks * P2.DEFAULT_BLOCK_ROWS
-        r_cap = P2.used_token_rows(out, n_blocks)
-        phases = np.asarray(out[rows]).reshape(-1)
-        phases = np.where(P2.lane_overran(batch, out[rows + 1]),
-                          np.uint32(0xFFFF), phases)
-        n_out_rows = max(FLUSH,
-                         -(-int(batch.mlens.max()) // 4 // FLUSH) * FLUSH)
-        rkernel = get_resolve_kernel(r_cap, n_out_rows, H // 4,
-                                     groups=1, interpret=interpret)
-        scal = jax.device_put(
-            jnp.asarray(batch.mlens.astype(np.int32).reshape(8, 128)), dev
-        )
-        resolved = rkernel(out[:r_cap], scal)  # async dispatch
-        resolving.append((gi, batch, phases, resolved, n_out_rows))
-
-    # phase 3: ordered fetch + unpack + per-lane fallback
-    for gi, batch, phases, resolved, n_out_rows in resolving:
-        res4 = np.asarray(resolved).reshape(1, n_out_rows + 8, 8, 128)
-        outs, errs = unpack_resolved(res4, n_out_rows, batch.mlens)
-        base = gi * gs
-        n_fallback = 0
-        for slot in range(NS):
-            k = slot if batch.perm is None else int(batch.perm[slot])
-            if k < 0 or k >= batch.n_streams:
-                continue
-            if phases[slot] != P2.DONE or errs[slot] != 0:
-                n_fallback += 1
-                results[base + k] = host_decode(groups[gi][k])
-            else:
-                results[base + k] = outs[slot]
-        P2._note_fallbacks(batch.n_streams, n_fallback)
-    return results  # type: ignore[return-value]
+    cuts = np.linspace(0, len(streams), len(devices) + 1).astype(int)
+    jobs = [
+        DecodeJob(streams[a:b], custom_dictionary=custom_dictionary,
+                  sizes=None if sizes is None else sizes[a:b],
+                  interpret=interpret, device=dev).launch()
+        for dev, a, b in zip(devices, cuts[:-1], cuts[1:])
+    ]
+    results = [job.finish() for job in jobs]
+    out = [o for r in results for o in r.values()]
+    if return_devices:
+        return out, [r.output_device for r in results]
+    return out
 
 
 def encode_batches_multichip(
@@ -208,26 +72,24 @@ def encode_batches_multichip(
     *,
     chunk_size: int = 32768,
     hash_stride: int = 1,
-    interpret: bool = False,
     max_distance: int | None = None,
     chain_depth: int = 2,
     table_groups: int = 1,
     lit_ctx_trees: int = 1,
     hist_stride: int | None = None,
 ) -> list[bytes]:
-    """Encode large inputs across mesh devices, one 32 MB batch per device.
+    """Encode large inputs across mesh devices, one 1024-chunk batch each.
 
     Data parallel like decode_batches_multichip, with overlapped dispatch:
     the encode pipeline (ops/device_encode.py) is driven in three phases —
     (1) match/parse/record stages dispatched to every device before any
-    result is fetched, (2) host table build + pack-kernel dispatch per
+    result is fetched, (2) host table build + bit-pack dispatch per
     device, (3) fetch + stream assembly — so all devices compute their
-    heavy stages concurrently instead of round-robin serially.
+    heavy stages concurrently.
 
     The quality knobs (chain_depth, table_groups, lit_ctx_trees,
-    hist_stride, max_distance) are the single-chip encode_device_batch
-    knobs, passed through verbatim so the multichip path produces the
-    same bytes as the bench configuration (VERDICT r3 #5).
+    hist_stride, max_distance) are the single-device encode_device_batch
+    knobs, passed through verbatim so both produce the same bytes.
     """
     import jax
 
@@ -264,72 +126,12 @@ def encode_batches_multichip(
                 lit_ctx=lit_ctx_trees > 1, hist_stride=hist_stride,
             )))
     # phase 2: host tables + pack dispatch (fetches each device's sample,
-    # which only waits on that device; pack kernels again run concurrently)
+    # which only waits on that device; the packs again run concurrently)
     for dev, state in states:
         with jax.default_device(dev):
-            _encode_mid(state, 22, interpret, table_groups, lit_ctx_trees)
+            _encode_mid(state, 22, table_groups, lit_ctx_trees)
     # phase 3: ordered fetch + assembly
     out: list[bytes] = []
     for dev, state in states:
         out.extend(_encode_finish(state))
     return out
-
-
-def broadcast_dictionary_chunks(mesh=None):
-    """The static dictionary in the v3 kernel's chunk layout, replicated
-    over the mesh (one broadcast over ICI, HBM-resident per device).
-    Consumed by decode_batch_v3_multichip / staged_v3(dict_dev=...) —
-    kernels read dictionary bytes from THIS array's per-device shards
-    instead of re-staging 122 KB per call (SURVEY section 2.3
-    "dictionary broadcast"; reference ensureDictionary
-    engine.ts:2060-2082)."""
-    import jax
-    import jax.numpy as jnp
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    from ..ops.pallas_decode3 import _dict_chunks
-
-    if mesh is None:
-        mesh = get_mesh()
-    chunks, _ = _dict_chunks()
-    return jax.device_put(jnp.asarray(chunks), NamedSharding(mesh, P()))
-
-
-def decode_batch_v3_multichip(
-    streams: list[bytes],
-    mesh=None,
-    *,
-    interpret: bool = False,
-    H: int = 2048,
-    group_size: int = 1024,
-    custom_dictionary=None,
-    dict_bcast=None,
-) -> list[bytes]:
-    """Full-format (v3 fused kernel) decode across mesh devices.
-
-    Stream groups round-robin over devices; the 122 KB static dictionary
-    is broadcast ONCE (replicated sharding) and each device's kernel
-    consumes its local shard of the broadcast array (zero re-upload)."""
-    import jax
-
-    from ..ops.pallas_decode3 import decode_batch_v3_full
-
-    if mesh is None:
-        mesh = get_mesh()
-    devices = list(mesh.devices.reshape(-1))
-    if dict_bcast is None:
-        dict_bcast = broadcast_dictionary_chunks(mesh)
-    shard_of = {s.device: s.data for s in dict_bcast.addressable_shards}
-
-    groups = [streams[i: i + group_size]
-              for i in range(0, len(streams), group_size)]
-    results: list[bytes] = []
-    for gi, group in enumerate(groups):
-        dev = devices[gi % len(devices)]
-        with jax.default_device(dev):
-            results.extend(decode_batch_v3_full(
-                group, H=H, interpret=interpret,
-                custom_dictionary=custom_dictionary,
-                dict_dev=shard_of.get(dev),
-            ))
-    return results

@@ -1,21 +1,16 @@
 """Profiling and benchmark helpers."""
 
-from .benchmarks import (
-    compare_timings,
-    measure_rtt,
-    time_device_fn,
-    welch_t_test,
-)
+from .benchmarks import compare_timings, time_device_fn, welch_t_test
 from .profiling import (
     Phase,
     phase_report,
+    profile_decode,
     profile_device_encode,
-    profile_e2e_decode,
     trace,
 )
 
 __all__ = [
-    "compare_timings", "measure_rtt", "time_device_fn", "welch_t_test",
-    "trace", "Phase", "phase_report", "profile_e2e_decode",
+    "compare_timings", "time_device_fn", "welch_t_test",
+    "trace", "Phase", "phase_report", "profile_decode",
     "profile_device_encode",
 ]

@@ -1,18 +1,19 @@
-"""TPU device encoder (ops/device_encode.py): CPU/interpret correctness."""
+"""Device encoder (ops/device_encode.py): correctness on the CPU backend."""
 
 import numpy as np
 import pytest
 
 from brotli_tpu.decode import decode
+from brotli_tpu.ops.batch_decode import decode_batch
 from brotli_tpu.ops.device_encode import encode_device_batch
 
-from conftest import VECTORS_DIR
+from conftest import FONT, TEXT
 
-ALICE = open("/root/reference/test/fixtures/vectors/alice29.txt", "rb").read()
+ALICE = TEXT
 
 
 def roundtrip(data, cs, **kw):
-    streams = encode_device_batch(data, chunk_size=cs, interpret=True, **kw)
+    streams = encode_device_batch(data, chunk_size=cs, **kw)
     assert len(streams) == -(-len(data) // cs)
     got = b"".join(decode(s) for s in streams)
     assert got == data
@@ -50,19 +51,16 @@ def test_hash_stride_2():
 
 
 def test_binary_fixture():
-    data = open("/root/reference/bench/fixtures/enc-ttf.bin", "rb").read()[:8192]
-    roundtrip(data, 1024)
+    roundtrip(FONT[:8192], 1024)
 
 
-def test_device_streams_decode_in_lockstep_kernel():
-    # device-encoded chunks share tables -> v2 decoder takes them as a batch
-    from brotli_tpu.ops.pallas_decode2 import decode_batch_pallas2, preflight_shared
-
+def test_device_streams_decode_in_batch_kernel():
+    # device-encoded chunks decode as one batch (kernel's CPU build)
     data = ALICE[:4096]
-    streams = encode_device_batch(data, chunk_size=1024, interpret=True)
-    assert preflight_shared(streams) is not None
-    got = decode_batch_pallas2(streams, interpret=True)
-    assert b"".join(got) == data
+    streams = encode_device_batch(data, chunk_size=1024)
+    res = decode_batch(streams, sizes=[1024] * 4, interpret=True)
+    assert b"".join(res.values()) == data
+    assert res.fallback_lanes == res.error_lanes == res.relaunched_lanes == 0
 
 
 def test_compression_is_real():
@@ -71,34 +69,20 @@ def test_compression_is_real():
 
 
 def test_table_groups_mixed_content_roundtrip():
-    """table_groups=2 clusters text/binary lanes; streams decode on the v2
-    fast path via table-signature binning (no host fallback)."""
-    from brotli_tpu.ops.pallas_decode2 import (
-        decode_batch_pallas2,
-        preflight_binned,
-    )
-
-    font = open("/root/reference/bench/fixtures/enc-ttf.bin", "rb").read()
-    data = (ALICE[:2048] + font[:2048]) * 2
-    streams = encode_device_batch(data, chunk_size=1024, table_groups=2,
-                                  interpret=True)
-    from brotli_tpu.decode import decode
-
+    """table_groups=2 clusters text/binary lanes; the streams decode as one
+    batch, lanes of both groups together (no host fallback)."""
+    data = (ALICE[:2048] + FONT[:2048]) * 2
+    streams = encode_device_batch(data, chunk_size=1024, table_groups=2)
     assert b"".join(decode(s) for s in streams) == data
-    binned = preflight_binned(streams)
-    if binned is not None:  # clustering may legitimately pick one group
-        assert binned[0].groups <= 2
-    got = decode_batch_pallas2(streams, interpret=True)
-    assert b"".join(got) == data
+    res = decode_batch(streams, interpret=True)
+    assert b"".join(res.values()) == data
+    assert res.fallback_lanes == 0
 
 
 def test_max_distance_cap_respected():
-    """Every emitted distance stays within the resolve-window cap."""
-    from brotli_tpu.ops.pallas_resolve import MAX_DEVICE_DISTANCE
-
+    """Streams encoded with a distance cap stay standard and decodable."""
     data = (ALICE[:1024] * 8)[:8192]  # repetition beyond the cap distance
-    streams = encode_device_batch(data, chunk_size=4096, interpret=True,
-                                  max_distance=1000)
+    streams = encode_device_batch(data, chunk_size=4096, max_distance=1000)
     from brotli_tpu.decode import decode
 
     assert b"".join(decode(s) for s in streams) == data
@@ -114,58 +98,38 @@ def test_max_distance_cap_respected():
 def test_device_encode_32k_chunks():
     """Production-size chunks (VERDICT round-1 weak item 6)."""
     data = (ALICE * 2)[: 2 * 32768]
-    streams = encode_device_batch(data, chunk_size=32768, interpret=True,
-                                  chain_depth=4)
+    streams = encode_device_batch(data, chunk_size=32768, chain_depth=4)
     from brotli_tpu.decode import decode
 
     assert b"".join(decode(s) for s in streams) == data
 
 
-def test_context_mapped_encode_v3_decode():
-    """lit_ctx_trees>1: device encoder emits context-mapped literal trees
-    (UTF8 mode, clustered per table group); streams round-trip on host AND
-    decode on-device through the v3 fused kernel, binning by the shared
-    per-group table signature (the at-scale full-format decode workload)."""
-    from brotli_tpu.ops import pallas_decode3 as P3
-
-    data = open(f"{VECTORS_DIR}/alice29.txt", "rb").read()[: 8 * 1024]
+def test_context_mapped_encode_batch_decode():
+    """lit_ctx_trees>1: the device encoder emits context-mapped literal
+    trees (UTF8 mode, clustered per table group); the streams round-trip on
+    the host and decode as one device batch."""
+    data = ALICE[: 8 * 1024]
     streams = encode_device_batch(
-        data, chunk_size=1024, lit_ctx_trees=4, table_groups=2,
-        interpret=True,
-    )
-    # host golden round-trip
-    got = b"".join(decode(s) for s in streams)
-    assert got == data
-    # streams within a table group share the full signature -> few groups
-    batch = P3.preflight_v3(streams)
-    assert batch is not None and batch.groups <= 2
-    from brotli_tpu.ops.pallas_decode2 import fallback_stats
-
-    before = fallback_stats()["lanes_fallback"]
-    got3 = P3.decode_batch_v3(streams, H=2048, interpret=True)
-    assert got3 == [data[i : i + 1024] for i in range(0, len(data), 1024)]
-    assert fallback_stats()["lanes_fallback"] == before
+        data, chunk_size=1024, lit_ctx_trees=4, table_groups=2)
+    assert b"".join(decode(s) for s in streams) == data
+    res = decode_batch(streams, interpret=True)
+    assert res.values() == [data[i: i + 1024] for i in range(0, len(data), 1024)]
+    assert res.fallback_lanes == 0
 
 
-def test_block_split_encode_roundtrip_and_v3_decode():
+def test_block_split_encode_roundtrip_and_batch_decode():
     """block_types>1: intra-chunk literal block splitting (segment typing
-    via device k-means + entropy-cost Viterbi, switch bits packed by the
-    kernel).  Streams must round-trip on host AND decode through the v3
-    fused kernel (which handles block switching on device)."""
-    from brotli_tpu.ops import pallas_decode3 as P3
-
-    font = open(
-        "/root/reference/bench/fixtures/enc-ttf.bin", "rb"
-    ).read()[: 8 * 2048]
-    data = ALICE[: 8 * 2048] + font
+    via device k-means + entropy-cost Viterbi, switch bits in the pack).
+    Streams must round-trip on the host and through the batch decoder,
+    which handles block switching per lane."""
+    data = ALICE[: 8 * 2048] + FONT[: 8 * 2048]
     streams = encode_device_batch(
-        data, chunk_size=2048, interpret=True, table_groups=2,
-        lit_ctx_trees=4, block_types=3, block_seg=512,
+        data, chunk_size=2048, table_groups=2, lit_ctx_trees=4,
+        block_types=3, block_seg=512,
     )
-    got = b"".join(decode(s) for s in streams)
-    assert got == data
-    got3 = P3.decode_batch_v3(streams, H=2048, interpret=True)
-    assert got3 == [data[i : i + 2048] for i in range(0, len(data), 2048)]
+    assert b"".join(decode(s) for s in streams) == data
+    res = decode_batch(streams, interpret=True)
+    assert res.values() == [data[i: i + 2048] for i in range(0, len(data), 2048)]
 
 
 def test_block_split_switch_plan_invariants():
@@ -205,14 +169,13 @@ def test_block_split_switch_plan_invariants():
 
 def test_profile_device_encode_report():
     """Encode profiler: phases cover the three sync boundaries and the
-    summary's ratio matches a real compressed ratio on the interpret
-    pipeline."""
+    summary's ratio matches a real compressed ratio."""
     from brotli_tpu.utils import phase_report, profile_device_encode
 
     data = (b"profiling the device encode pipeline " * 2048)[: 32 * 1024]
     phases, summary = profile_device_encode(
         data, chunk_size=1024, chain_depth=2, table_groups=1,
-        lit_ctx_trees=1, interpret=True)
+        lit_ctx_trees=1)
     assert [p.name for p in phases] == [
         "match/parse stages", "tables + pack dispatch", "assembly sync"]
     assert all(p.seconds > 0 for p in phases)
@@ -220,3 +183,75 @@ def test_profile_device_encode_report():
     assert 0 < summary["ratio"] < 1
     assert summary["encode_mbps"] > 0
     assert len(phase_report(phases).splitlines()) == 3
+
+
+def _pack_reference(rec0, rec1, tab, init0, initav, nt):
+    """Bit-serial reference of the record semantics for one lane
+    (no block switching, one table group, context trees off)."""
+    from brotli_tpu.constants import COPY_LENGTH_N_BITS, INSERT_LENGTH_N_BITS
+
+    acc, nbits = int(init0), int(initav)
+
+    def put(v, nb):
+        nonlocal acc, nbits
+        acc |= (int(v) & ((1 << nb) - 1)) << nbits
+        nbits += nb
+
+    for r0, r1 in zip(rec0, rec1):
+        kind, code = (int(r0) >> 28) & 0xF, int(r0) & 0x3FFF
+        if kind == 0:
+            continue
+        if kind == 1:
+            ent = int(tab[nt * 256 + code])
+        elif kind == 3:
+            ent = int(tab[nt * 256 + 704 + code])
+        else:
+            ent = int(tab[code & 0xFF])
+        put(ent & 0xFFFF, ent >> 16)
+        if kind == 1:
+            cell = code >> 6
+            ri = cell if cell < 2 else cell - 2
+            ins = ((0x29850 >> (2 * ri)) & 3) * 8 + ((code >> 3) & 7)
+            cp = ((0x26244 >> (2 * ri)) & 3) * 8 + (code & 7)
+            put(int(r1) & 0xFFFF, int(INSERT_LENGTH_N_BITS[ins]))
+            put((int(r1) >> 16) & 0xFFFF, int(COPY_LENGTH_N_BITS[cp]))
+        elif kind == 3 and code >= 16:
+            put(int(r1), ((code - 16) >> 1) + 1)
+    return acc, nbits
+
+
+def test_plain_pack_matches_record_semantics():
+    """The XLA bit pack (table gathers, cumsum of field widths, one
+    scatter-add of disjoint bit ranges) equals a bit-serial reference."""
+    import jax.numpy as jnp
+
+    from brotli_tpu.ops.device_encode import _jitted_pack
+
+    rng = np.random.default_rng(5)
+    B, R, nt = 6, 96, 1
+    kind = rng.choice([0, 1, 2, 3], size=(B, R), p=[0.2, 0.2, 0.45, 0.15])
+    cmd = rng.integers(0, 704, (B, R))
+    lit = rng.integers(0, 256, (B, R))
+    dist = rng.integers(0, 64, (B, R))
+    code = np.where(kind == 1, cmd, np.where(kind == 3, dist, lit))
+    rec0 = ((kind << 28) | code).astype(np.int32)
+    rec1 = np.where(kind == 3, rng.integers(0, 1 << 20, (B, R)),
+                    rng.integers(0, 1 << 31, (B, R))).astype(np.int32)
+    depth = rng.integers(1, 16, 256 * nt + 704 + 64)
+    tab = ((depth << 16) | rng.integers(0, 1 << 15, depth.size)).astype(np.int32)
+    init0 = rng.integers(0, 1 << 10, B).astype(np.uint32)
+    initav = rng.integers(0, 11, B).astype(np.int32)
+    init0 &= ((1 << initav.astype(np.uint32)) - 1).astype(np.uint32)
+    keys, words, status = _jitted_pack(1, nt)(
+        jnp.asarray(rec0), jnp.asarray(rec1), jnp.asarray(tab),
+        jnp.zeros(128, jnp.int32), jnp.zeros(B, jnp.int32),
+        jnp.asarray(init0), jnp.asarray(initav))
+    words, status = np.asarray(words), np.asarray(status)
+    for b in range(B):
+        acc, nbits = _pack_reference(rec0[b], rec1[b], tab, init0[b],
+                                     initav[b], nt)
+        n_full, tail = int(status[0, b]), int(status[1, b])
+        assert n_full * 32 + tail == nbits
+        got = sum(int(words[j, b]) << (32 * j) for j in range(n_full + 1))
+        assert got == acc
+        assert int(status[5, b]) == 0

@@ -8,7 +8,9 @@ order makes this bit-deterministic, not approximate.
 
 import pytest
 
-from conftest import VECTORS_DIR
+from conftest import HTML, TEXT
+
+SOURCES = {"text": TEXT, "html": HTML[1000:], "prose": TEXT[50000:]}
 
 
 def _host_q10(data: bytes):
@@ -33,14 +35,14 @@ def _cmd_tuple(c):
 
 
 @pytest.mark.parametrize("name,cut", [
-    ("alice29.txt", 1200),
-    pytest.param("asyoulik.txt", 1000, marks=pytest.mark.slow),
-    pytest.param("plrabn12.txt", 900, marks=pytest.mark.slow),
+    ("text", 1200),
+    pytest.param("html", 1000, marks=pytest.mark.slow),
+    pytest.param("prose", 900, marks=pytest.mark.slow),
 ])
 def test_device_dp_matches_host_q10(name, cut):
     from brotli_tpu.ops.device_zopfli import zopfli_commands_device
 
-    data = open(f"{VECTORS_DIR}/{name}", "rb").read()[:cut]
+    data = SOURCES[name][:cut]
     host_cmds, host_li = _host_q10(data)
     dev_cmds, dev_li = zopfli_commands_device(data)
     assert dev_li == host_li

@@ -5,6 +5,8 @@ swapping it into the device encoder's table step cannot change streams."""
 
 import numpy as np
 
+from conftest import TEXT
+
 from brotli_tpu.encode.entropy import build_huffman_code
 from brotli_tpu.encode.metablock_full import _cluster_and_build_context_map
 from brotli_tpu.native import (
@@ -32,7 +34,7 @@ def test_cluster_context_map_parity_real_text():
 
     lut = np.asarray(_CONTEXT_LUT, np.int64)
     data = np.frombuffer(
-        open("/root/reference/test/fixtures/vectors/alice29.txt", "rb").read(),
+        TEXT,
         np.uint8,
     ).astype(np.int64)
     p1 = np.concatenate([[0], data[:-1]])

@@ -6,7 +6,7 @@ import pytest
 from brotli_tpu import decode
 from brotli_tpu.encode import Encoder, encode
 
-from conftest import VECTORS_DIR
+from conftest import FONT, TEXT
 
 
 def _xorshift32(seed):
@@ -27,7 +27,7 @@ def _ramp_bytes(n):
     return bytes(i & 0xFF for i in range(n))
 
 
-ALICE = open(f"{VECTORS_DIR}/alice29.txt", "rb").read()
+ALICE = TEXT
 
 CASES = [
     b"",
@@ -86,7 +86,7 @@ def test_modes_roundtrip():
 
 
 def test_font_mode_differs_from_generic():
-    data = open(f"{VECTORS_DIR}/../../../bench/fixtures/enc-ttf.bin", "rb").read()[:20000]
+    data = FONT[:20000]
     generic = encode(data, quality=5, mode=0)
     font = encode(data, quality=5, mode=2)
     assert decode(font) == data

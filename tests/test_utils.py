@@ -1,7 +1,5 @@
 """Benchmark/profiling helpers."""
 
-import numpy as np
-
 from brotli_tpu.utils import compare_timings, welch_t_test, time_device_fn
 
 
@@ -22,8 +20,20 @@ def test_welch_t_test_no_difference():
 
 
 def test_time_device_fn_runs():
+    import jax
     import jax.numpy as jnp
 
+    calls = []
+
+    @jax.jit
+    def f(a):
+        return a * 2 + 1
+
+    def fn(a):
+        calls.append(1)
+        return f(a)
+
     x = jnp.arange(1024, dtype=jnp.int32).reshape(8, 128)
-    dt = time_device_fn(lambda a: a * 2 + 1, x, rep=2, samples=1)
+    dt = time_device_fn(fn, x, samples=2, warmup=1)
     assert dt > 0
+    assert len(calls) == 3      # warm-up outside the timed samples

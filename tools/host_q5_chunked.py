@@ -1,5 +1,6 @@
 """Host q5 ratio on the SAME independently-chunked corpus the device
-encoder is measured on — the apples-to-apples quality target.
+encoder is measured on (the seeded bulk corpus) — the apples-to-apples
+quality target.
 
 The device encoder compresses B independent chunk streams (no cross-chunk
 history); BASELINE.md's host-q5 numbers encode whole files, so they carry
@@ -9,23 +10,17 @@ so the ratio gap decomposes into (chunking) + (parse/table quality).
 Usage: python tools/host_q5_chunked.py [n_chunks] [chunk_kb] [quality]
 """
 import sys
+from pathlib import Path
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from brotli_tpu import encode
+from brotli_tpu import corpus, encode  # noqa: E402
 
 N_CHUNKS = int(sys.argv[1]) if len(sys.argv) > 1 else 128
 CHUNK = (int(sys.argv[2]) if len(sys.argv) > 2 else 32) * 1024
 Q = int(sys.argv[3]) if len(sys.argv) > 3 else 5
 
-FIXTURES = (
-    "/root/reference/test/fixtures/vectors/alice29.txt",
-    "/root/reference/test/fixtures/vectors/lcet10.txt",
-    "/root/reference/test/fixtures/vectors/plrabn12.txt",
-    "/root/reference/bench/fixtures/enc-ttf.bin",
-)
-base = b"".join(open(f, "rb").read() for f in FIXTURES)
-data = (base * 64)[: N_CHUNKS * CHUNK]
+data = corpus.bulk(N_CHUNKS * CHUNK, 0)   # the input tools/ratio_probe.py uses
 
 chunked = 0
 for i in range(0, len(data), CHUNK):

@@ -3,14 +3,15 @@
 Exact sizes from the SAME device-parse records under
   (a) per-GROUP shared tables (what the device emits today),
   (b) per-LANE private tables (the table-sharing cost isolated);
-the remaining gap to host-q5-chunked (0.4049, tools/host_q5_chunked.py)
-is parse quality.
+the remaining gap to host-q5-chunked (tools/host_q5_chunked.py on the
+same input) is parse quality.
 
 Usage: python tools/ratio_decompose.py [n_chunks] [chunk_kb]
 """
 import sys
+from pathlib import Path
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import numpy as np
 
 import jax
@@ -19,13 +20,11 @@ jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp  # noqa: E402
 
 import brotli_tpu.ops.device_encode as DE  # noqa: E402
-from tools.ratio_probe import FIXTURES, body_bits  # noqa: E402
+from tools.ratio_probe import body_bits, data  # noqa: E402
 
 N_CHUNKS = int(sys.argv[1]) if len(sys.argv) > 1 else 128
 CHUNK = (int(sys.argv[2]) if len(sys.argv) > 2 else 32) * 1024
 
-base = b"".join(open(f, "rb").read() for f in FIXTURES)
-data = (base * 64)[: N_CHUNKS * CHUNK]
 
 
 def exact_size(state, rec0_np, group_of, modes, nt):
@@ -75,7 +74,6 @@ def main():
     sz2 = exact_size(state, rec0_np, per_lane[: len(group_of)],
                      lane_modes, 8)
     print(f"(b) per-lane tables nt=8:     {sz2/len(data):.4f}", flush=True)
-    print("host q5 chunked reference:     0.4049 (tools/host_q5_chunked.py)")
 
 
 if __name__ == "__main__":

@@ -2,17 +2,17 @@
 
 Runs the real device stages (XLA on CPU) once per parse config, then for
 each table config computes EXACT stream sizes by summing code lengths
-over the record arrays in numpy — bit-identical to what the pack kernel
-would emit (validated against an interpret-mode encode).  Lets table-side
-knobs (table_groups, lit_ctx_trees, block_types, block_seg) be swept in
-seconds instead of ~6 min of interpret packing each.
+over the record arrays in numpy — the sizes the bit pack would emit.
+Lets table-side knobs (table_groups, lit_ctx_trees, block_types,
+block_seg) be swept without packing.  Input: the seeded bulk corpus.
 
 Usage: python tools/ratio_probe.py [n_chunks] [chunk_kb]
 """
 import sys
 import time
+from pathlib import Path
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import numpy as np
 
 import jax
@@ -25,14 +25,9 @@ import brotli_tpu.ops.device_encode as DE
 N_CHUNKS = int(sys.argv[1]) if len(sys.argv) > 1 else 128
 CHUNK = (int(sys.argv[2]) if len(sys.argv) > 2 else 32) * 1024
 
-FIXTURES = (
-    "/root/reference/test/fixtures/vectors/alice29.txt",
-    "/root/reference/test/fixtures/vectors/lcet10.txt",
-    "/root/reference/test/fixtures/vectors/plrabn12.txt",
-    "/root/reference/bench/fixtures/enc-ttf.bin",
-)
-base = b"".join(open(f, "rb").read() for f in FIXTURES)
-data = (base * 64)[: N_CHUNKS * CHUNK]
+from brotli_tpu import corpus  # noqa: E402
+
+data = corpus.bulk(N_CHUNKS * CHUNK, 0)
 
 from brotli_tpu.constants import (
     COPY_LENGTH_N_BITS,

@@ -7,37 +7,32 @@ thresholds, weak-match gate, chain depth — at a fixed table config and
 reports exact stream sizes via the ratio_probe machinery.
 
 Usage: python tools/sweep_parse_ratio.py [n_chunks] [chunk_kb]
-(CPU: ~2-4 min per config at 64 chunks; chip: seconds per config)
+(runs on the CPU unless --device is given)
 """
 
 import importlib.util
 import sys
 import time
+from pathlib import Path
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import numpy as np  # noqa: E402
 
 import jax  # noqa: E402
 
-if "--tpu" not in sys.argv:
+if "--device" not in sys.argv:
     jax.config.update("jax_platforms", "cpu")
 
 import brotli_tpu.ops.device_encode as DE  # noqa: E402
 
 spec = importlib.util.spec_from_file_location(
-    "ratio_probe", "/root/repo/tools/ratio_probe.py"
+    "ratio_probe", Path(__file__).resolve().parent / "ratio_probe.py"
 )
 rp = importlib.util.module_from_spec(spec)
 
 N_CHUNKS = int(sys.argv[1]) if len(sys.argv) > 1 else 64
 CHUNK = (int(sys.argv[2]) if len(sys.argv) > 2 else 32) * 1024
 
-FIXTURES = (
-    "/root/reference/test/fixtures/vectors/alice29.txt",
-    "/root/reference/test/fixtures/vectors/lcet10.txt",
-    "/root/reference/test/fixtures/vectors/plrabn12.txt",
-    "/root/reference/bench/fixtures/enc-ttf.bin",
-)
 
 
 def main() -> None:
