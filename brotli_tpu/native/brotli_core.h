@@ -542,6 +542,9 @@ struct Metablock {
   BRC_FN int init(const Tables& T, BitReader& br, bool large_window,
                   int32_t* a, int64_t arena_cap, int64_t* need) {
     arena = a;
+    // The fixed region is written before the trees are sized: never past
+    // a smaller arena.
+    if (arena_cap < A_TREES) { *need = A_TREES; return ERR_ARENA_CAP; }
     for (int c = 0; c < 3; c++) {
       int n = var_len_uint8(br) + 1;
       num_types[c] = n;

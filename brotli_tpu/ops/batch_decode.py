@@ -20,16 +20,19 @@ Lane counts and buffer sizes are rounded up to a few buckets so compiles
 stay bounded; padding lanes are empty and fail at once without touching
 memory.
 
-Output capacity per lane is the caller's `sizes` when given, otherwise the
-first metablock's length when the stream is a single ISLAST metablock, and
-otherwise an estimate.  A lane whose output or table arena is too small
-reports the size it needs (ERR_OUT_CAP / ERR_ARENA_CAP) and is relaunched on
-the device with that size: `relaunched_lanes` counts them.  A lane the
-device flags with any other error is given to the host decoder for its
-verdict: if the host also rejects the stream, the lane is an `error_lanes`
-entry carrying the host's BrotliError; if the host decodes it, the lane is a
-`fallback_lanes` entry (a device fault) and a warning is logged.  Nothing
-falls back silently.
+Output capacity per lane is the stream's decoded size when its header
+gives it (a single ISLAST metablock), and otherwise an estimate.  A lane
+whose output or table arena is too small reports the size it needs
+(ERR_OUT_CAP / ERR_ARENA_CAP) and is relaunched on the device with that
+size: `relaunched_lanes` counts them.  Lanes are split over as many
+launches as keep each launch's input, output and arena within
+LAUNCH_BYTES.  A lane that needs more than `max_output_size` is rejected
+with the host decoder's error (-28) without being decoded; a lane that
+needs more than LAUNCH_BYTES on its own is flagged.  A lane the device
+flags is given to the host decoder for its verdict: if the host also
+rejects the stream, the lane is an `error_lanes` entry carrying the host's
+BrotliError; if the host decodes it, the lane is a `fallback_lanes` entry
+and a warning is logged.  Nothing falls back silently.
 
 `interpret=True` runs the same custom call through its CPU build (g++), which
 decodes the lanes in a loop with the identical per-lane code; that is how the
@@ -46,6 +49,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from ..decode import decoded_size
 from ..decode.bitreader import BrotliError
 from ..native import (
     ARENA_DEFAULT, ERR_ARENA_CAP, ERR_OUT_CAP, build_ffi_lib, compound_bytes,
@@ -56,6 +60,9 @@ _log = logging.getLogger(__name__)
 
 TARGET = "brotli_decode_batch"
 MAX_LAUNCH_BYTES = (1 << 31) - 1   # int32 offsets
+# Most input, output or arena bytes one launch is given (and so one lane):
+# bucketing a total of at most 2^30 keeps every buffer under 2 GiB.
+LAUNCH_BYTES = 1 << 30
 MIN_LANES = 32
 
 
@@ -147,48 +154,6 @@ def _tables_on(device):
     return tuple(jax.device_put(x, device) for x in core_tables())
 
 
-def peek_size(s: bytes) -> tuple[int, bool]:
-    """(first metablock length, whether it is the stream's only one) from
-    the stream's first bytes; (-1, False) when unknown (metadata first,
-    large window, or too short)."""
-    if len(s) < 1:
-        return -1, False
-    v = int.from_bytes(s[:8], "little")
-    pos = 1
-    if v & 1:
-        n = (v >> 1) & 7
-        pos = 4
-        if n == 0:
-            if (v >> 4) & 7 == 1:
-                return -1, False
-            pos = 7
-    islast = (v >> pos) & 1
-    pos += 1
-    if islast:
-        if (v >> pos) & 1:
-            return 0, True
-        pos += 1
-    nib = ((v >> pos) & 3) + 4
-    pos += 2
-    if nib == 7:
-        return -1, False
-    mlen = ((v >> pos) & ((1 << (4 * nib)) - 1)) + 1
-    return int(mlen), bool(islast)
-
-
-def _initial_caps(streams, sizes) -> np.ndarray:
-    if sizes is not None:
-        caps = np.maximum(np.asarray(sizes, np.int64), 0)
-        if caps.shape != (len(streams),):
-            raise ValueError("sizes: one decoded size per stream")
-        return caps
-    caps = np.empty(len(streams), np.int64)
-    for i, s in enumerate(streams):
-        mlen, only = peek_size(s)
-        caps[i] = mlen if only else max(mlen, 8 * len(s) + 65536)
-    return caps
-
-
 @dataclass
 class Staged:
     """One launch's device arguments and the host view of its layout."""
@@ -218,7 +183,7 @@ def stage(streams, lanes, caps, arena_caps, cd: bytes, large_window: bool,
     n_out = bucket(offs[1][-1], 1 << 12)
     n_arena = bucket(offs[2][-1], 1 << 12)
     if max(n_in, n_out, 4 * n_arena) > MAX_LAUNCH_BYTES:
-        raise ValueError("launch over 2 GiB: split the batch")
+        raise ValueError("launch buffers over 2 GiB")
     inp = np.zeros(n_in, np.uint8)
     inp[: offs[0][-1]] = np.frombuffer(
         b"".join(streams[i] for i in lanes), np.uint8)
@@ -234,11 +199,12 @@ def stage(streams, lanes, caps, arena_caps, cd: bytes, large_window: bool,
 
 
 class DecodeJob:
-    """One batch on one device: `launch` dispatches the first round
-    without waiting, `finish` collects it, relaunches lanes that asked for
+    """One batch on one device: `launch` dispatches the first launches
+    without waiting, `finish` collects them, relaunches lanes that asked for
     larger buffers, and asks the host decoder about flagged lanes."""
 
-    def __init__(self, streams, *, custom_dictionary=None, sizes=None,
+    def __init__(self, streams, *, custom_dictionary=None,
+                 max_output_size: int | None = None,
                  large_window: bool = False, interpret: bool = False,
                  device=None):
         from ..utils.compile_cache import init_compile_cache
@@ -251,59 +217,104 @@ class DecodeJob:
         self.custom_dictionary = custom_dictionary
         self.cd = compound_bytes(custom_dictionary)
         self.large_window = large_window
+        self.max_output_size = max_output_size
+        self.lane_limit = LAUNCH_BYTES if max_output_size is None else \
+            min(LAUNCH_BYTES, max(max_output_size, 0))
         n = len(self.streams)
-        self.caps = _initial_caps(self.streams, sizes)
+        self.caps = np.zeros(n, np.int64)
         self.arena_caps = np.full(n, ARENA_DEFAULT, np.int64)
         self.codes = np.zeros(n, np.int64)
         self.res = BatchDecodeResult([None] * n)
-        self.pending = None
+        self.pending = []
         for i, s in enumerate(self.streams):
             if not s:
                 self.codes[i] = -16   # empty input: the host's verdict below
+                continue
+            cap = decoded_size(s[:16])   # the header fits in 16 bytes
+            if cap < 0:
+                cap = 8 * len(s) + 65536
+            elif not self._fits(i, cap):
+                continue
+            self.caps[i] = min(cap, self.lane_limit)
+
+    def _fits(self, i: int, need: int) -> bool:
+        """Whether lane i may have `need` output bytes.  If not, it is
+        rejected as the host decoder rejects output over max_output_size,
+        or, when too large for one launch, flagged for the host's verdict."""
+        if self.max_output_size is not None and need > self.max_output_size:
+            self.res.outputs[i] = BrotliError(
+                -28, "output larger than maxOutputSize")
+            self.res.error_lanes += 1
+        elif need <= LAUNCH_BYTES:
+            return True
+        self.codes[i] = ERR_OUT_CAP
+        return False
+
+    def stage_lanes(self, lanes) -> Staged:
+        """One launch's buffers for `lanes` at their current capacities."""
+        return stage(self.streams, lanes, self.caps, self.arena_caps, self.cd,
+                     self.large_window, self.device)
 
     def _dispatch(self, lanes) -> None:
-        st = stage(self.streams, lanes, self.caps, self.arena_caps, self.cd,
-                   self.large_window, self.device)
-        self.pending = (st, st.fn(*st.args))
+        """Launch `lanes`, split so that no launch's input, output or arena
+        passes LAUNCH_BYTES."""
+        group, used = [], (0, 0, 0)
+        for i in lanes:
+            size = (len(self.streams[i]) + 8, int(self.caps[i]),
+                    4 * int(self.arena_caps[i]))
+            used = tuple(u + x for u, x in zip(used, size))
+            if group and max(used) > LAUNCH_BYTES:
+                self._launch_one(group)
+                group, used = [], size
+            group.append(i)
+        if group:
+            self._launch_one(group)
+
+    def _launch_one(self, lanes) -> None:
+        st = self.stage_lanes(lanes)
+        self.pending.append((st, st.fn(*st.args)))
         self.res.launches += 1
 
     def launch(self) -> "DecodeJob":
-        todo = [i for i, s in enumerate(self.streams) if s]
-        if todo:
-            self._dispatch(todo)
+        self._dispatch(np.flatnonzero(self.codes == 0))
         return self
 
     def finish(self) -> BatchDecodeResult:
         res, outputs = self.res, self.res.outputs
-        while self.pending is not None:
-            st, (out_dev, status_dev) = self.pending
-            self.pending = None
-            res.output_device = str(next(iter(out_dev.devices())))
-            status = np.asarray(status_dev)
-            out = np.asarray(out_dev)
+        while self.pending:
+            launched, self.pending = self.pending, []
             retry = []
-            for j, i in enumerate(st.lanes):
-                code, length, need = (int(x) for x in status[j])
-                if code == 0:
-                    o = int(st.out_off[j])
-                    outputs[i] = out[o: o + length].tobytes()
-                elif code == ERR_OUT_CAP:
-                    self.caps[i] = max(need, 2 * self.caps[i])
-                    retry.append(i)
-                elif code == ERR_ARENA_CAP:
-                    self.arena_caps[i] = need
-                    retry.append(i)
-                else:
-                    self.codes[i] = code
+            for st, (out_dev, status_dev) in launched:
+                res.output_device = str(next(iter(out_dev.devices())))
+                status = np.asarray(status_dev)
+                out = np.asarray(out_dev)
+                for j, i in enumerate(st.lanes):
+                    code, length, need = (int(x) for x in status[j])
+                    if code == 0:
+                        o = int(st.out_off[j])
+                        outputs[i] = out[o: o + length].tobytes()
+                    elif code == ERR_OUT_CAP:
+                        if self._fits(i, need):
+                            self.caps[i] = min(max(need, 2 * self.caps[i]),
+                                               self.lane_limit)
+                            retry.append(i)
+                    elif code == ERR_ARENA_CAP:
+                        self.arena_caps[i] = need
+                        retry.append(i)
+                    else:
+                        self.codes[i] = code
             res.relaunched_lanes += len(retry)
             if retry:
                 self._dispatch(retry)
         from ..decode import decode as host_decode
 
         for i in np.flatnonzero(self.codes):
+            if outputs[i] is not None:
+                continue
             try:
                 outputs[i] = host_decode(
                     self.streams[i], custom_dictionary=self.custom_dictionary,
+                    max_output_size=self.max_output_size,
                     large_window=self.large_window)
                 res.fallback_lanes += 1
                 _log.warning("device flagged stream %d (code %d) but the "
@@ -315,14 +326,16 @@ class DecodeJob:
         return res
 
 
-def decode_batch(streams, *, custom_dictionary=None, sizes=None,
+def decode_batch(streams, *, custom_dictionary=None,
+                 max_output_size: int | None = None,
                  large_window: bool = False, interpret: bool = False,
                  device=None) -> BatchDecodeResult:
     """Decode independent Brotli streams in one device batch.
 
-    `sizes` (optional) are the decoded sizes, when the caller knows them;
-    they are capacities, so a larger value is safe.  `device` defaults to
-    the first GPU.  See the module docstring for the result's lane counts."""
+    `max_output_size` bounds each stream's output as in the host `decode`.
+    `device` defaults to the first GPU.  See the module docstring for the
+    result's lane counts."""
     return DecodeJob(streams, custom_dictionary=custom_dictionary,
-                     sizes=sizes, large_window=large_window,
-                     interpret=interpret, device=device).launch().finish()
+                     max_output_size=max_output_size,
+                     large_window=large_window, interpret=interpret,
+                     device=device).launch().finish()

@@ -37,16 +37,15 @@ def broadcast_dictionary(mesh=None):
     return jax.device_put(jnp.asarray(data), NamedSharding(mesh, P()))
 
 
-def decode_batches_multichip(streams: list[bytes], mesh=None, *, sizes=None,
-                             custom_dictionary=None, interpret: bool = False,
-                             return_devices: bool = False):
+def decode_batches_multichip(streams: list[bytes], mesh=None, *,
+                             custom_dictionary=None, interpret: bool = False):
     """Decode a batch across the mesh devices, one contiguous share each.
 
     Every device's first launch is dispatched before any result is read, so
-    the devices decode concurrently; results come back in input order.
-    Streams the devices flag are resolved as in `decode_batch` (the host's
-    error, or a counted fallback).  With `return_devices`, also returns the
-    device that held each share's output."""
+    the devices decode concurrently.  Returns one `BatchDecodeResult` per
+    device, in mesh order, so the shares' outputs concatenate to the input
+    order; each carries its lane counts and the device that held its
+    output."""
     from ..ops.batch_decode import DecodeJob
 
     if mesh is None:
@@ -55,15 +54,10 @@ def decode_batches_multichip(streams: list[bytes], mesh=None, *, sizes=None,
     cuts = np.linspace(0, len(streams), len(devices) + 1).astype(int)
     jobs = [
         DecodeJob(streams[a:b], custom_dictionary=custom_dictionary,
-                  sizes=None if sizes is None else sizes[a:b],
                   interpret=interpret, device=dev).launch()
         for dev, a, b in zip(devices, cuts[:-1], cuts[1:])
     ]
-    results = [job.finish() for job in jobs]
-    out = [o for r in results for o in r.values()]
-    if return_devices:
-        return out, [r.output_device for r in results]
-    return out
+    return [job.finish() for job in jobs]
 
 
 def encode_batches_multichip(

@@ -8,7 +8,9 @@ Phases (all data from `--seed`, see brotli_tpu/corpus.py):
   1. bulk encode: 1024 x 32 KiB of text/HTML encoded on the device
      (`encode_sharded_device`: chain depth 4, 8 table groups, 8 literal
      context trees), decoded on the device (`decode_batch`) and checked
-     bit-exact; 16 streams also decoded by the host decoder.
+     bit-exact; 16 streams also decoded by the host decoder and by the
+     python golden decoder (decode/engine.py), which shares no code with
+     the kernel.
   2. full-format decode: distinct host-encoded streams (q5/q11, TEXT and
      GENERIC, 2-64 KiB heavy-tailed, a FONT q11 stream with >= 16 block
      types per category, a multi-metablock stream of >= 1 MiB) spread over
@@ -55,6 +57,7 @@ def phase_bulk(seed: int, env: dict) -> None:
 
     import brotli_tpu
     from brotli_tpu import corpus
+    from brotli_tpu.decode.engine import decode as golden_decode
     from brotli_tpu.ops.batch_decode import decode_batch
 
     n_chunks, chunk = 1024, 32768
@@ -66,7 +69,7 @@ def phase_bulk(seed: int, env: dict) -> None:
     t_enc = time.perf_counter() - t0
     check(len(streams) == n_chunks, "one stream per chunk")
     t0 = time.perf_counter()
-    res = decode_batch(streams, sizes=[chunk] * n_chunks)
+    res = decode_batch(streams)
     t_dec = time.perf_counter() - t0
     chunks = [data[i * chunk:(i + 1) * chunk] for i in range(n_chunks)]
     exact = sum(o == c for o, c in zip(res.outputs, chunks))
@@ -74,12 +77,14 @@ def phase_bulk(seed: int, env: dict) -> None:
     check(res.fallback_lanes == 0 and res.error_lanes == 0, "no fallback")
     pick = np.linspace(0, n_chunks - 1, 16).astype(int)
     for i in pick:
-        check(brotli_tpu.decode(streams[i]) == chunks[i], f"host decode {i}")
+        check(brotli_tpu.decode(streams[i]) == golden_decode(streams[i])
+              == chunks[i], f"host decode {i}")
     n_in = sum(map(len, streams))
     emit("bulk_encode_roundtrip", env, lanes=n_chunks, bytes_in=len(data),
          bytes_compressed=n_in, ratio=n_in / len(data),
          bytes_out=sum(map(len, res.outputs)), fallback_lanes=res.fallback_lanes,
-         host_checked=len(pick), smoke_encode_s=t_enc, smoke_decode_s=t_dec)
+         relaunched_lanes=res.relaunched_lanes, golden_checked=len(pick),
+         smoke_encode_s=t_enc, smoke_decode_s=t_dec)
 
 
 def distinct_streams(seed: int):
@@ -109,9 +114,7 @@ def phase_full(seed: int, env: dict, n_lanes: int = 4096,
     from brotli_tpu.decode.bitreader import BitReader, BrotliError
     from brotli_tpu.decode.engine import (
         _MetablockState, _decode_window_bits, _read_metablock_length)
-    from brotli_tpu.ops.batch_decode import (
-        _initial_caps, decode_batch, stage)
-    from brotli_tpu.native import ARENA_DEFAULT, compound_bytes
+    from brotli_tpu.ops.batch_decode import DecodeJob, decode_batch
 
     t0 = time.perf_counter()
     distinct = distinct_streams(seed)
@@ -188,10 +191,7 @@ def phase_full(seed: int, env: dict, n_lanes: int = 4096,
          fallback_lanes=cd_res.fallback_lanes, smoke_decode_s=t_cd)
 
     # phase 4: compiled memory of the decoder at the phase-2 shapes
-    caps = _initial_caps(streams, None)
-    arena = np.full(len(streams), ARENA_DEFAULT, np.int64)
-    st = stage(streams, list(range(len(streams))), caps, arena,
-               compound_bytes(None), False, jax.devices()[0])
+    st = DecodeJob(streams).stage_lanes(list(range(len(streams))))
     mem = st.fn.lower(*st.args).compile().memory_analysis()
     jax.block_until_ready(st.fn(*st.args))
     t0 = time.perf_counter()
@@ -228,24 +228,26 @@ def phase_four(seed: int, env: dict, chunk: int = 32768,
     enc4 = encode_batches_multichip(data, mesh, chunk_size=chunk, **kw)
     t_enc4 = time.perf_counter() - t0
     t0 = time.perf_counter()
-    dec4, placed = decode_batches_multichip(
-        enc4, mesh, sizes=[chunk] * len(enc4), interpret=interpret,
-        return_devices=True)
+    res4 = decode_batches_multichip(enc4, mesh, interpret=interpret)
     t_dec4 = time.perf_counter() - t0
+    dec4 = [o for r in res4 for o in r.values()]
+    placed = [r.output_device for r in res4]
+    fallback = sum(r.fallback_lanes for r in res4)
     # the one-card reference: the same pieces, all on device 0
     enc1 = []
     for off in range(0, len(data), 1024 * chunk):
         enc1 += encode_device_batch(data[off: off + 1024 * chunk],
                                     chunk_size=chunk, **kw)
-    dec1 = decode_batch(enc1, sizes=[chunk] * len(enc1),
-                        interpret=interpret).values()
+    res1 = decode_batch(enc1, interpret=interpret)
+    dec1 = res1.values()
     chunks = [data[i: i + chunk] for i in range(0, len(data), chunk)]
     check(enc4 == enc1, "four-card streams equal one-card streams")
     check(dec4 == dec1 == chunks, "decode bit-exact and in order")
     check(len(set(placed)) == 4, f"outputs on {sorted(set(placed))}")
+    check(fallback == res1.fallback_lanes == 0, "no fallback")
     emit("four_gpu_data_parallel", env, lanes=len(enc4), bytes_in=len(data),
          bytes_compressed=sum(map(len, enc4)), bytes_out=sum(map(len, dec4)),
-         output_devices=placed, fallback_lanes=0,
+         output_devices=placed, fallback_lanes=fallback,
          smoke_encode_s=t_enc4, smoke_decode_s=t_dec4)
 
 

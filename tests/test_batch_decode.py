@@ -16,8 +16,9 @@ from brotli_tpu.encode.api import _NO_MASK
 from brotli_tpu.encode.bitwriter import BitWriter, encode_window_bits
 from brotli_tpu.encode.command import make_command
 from brotli_tpu.encode.metablock import store_metablock_trivial
-from brotli_tpu.ops.batch_decode import (
-    DecodeJob, bucket, decode_batch, peek_size, stage)
+from brotli_tpu.native import ARENA_FIXED, ERR_OUT_CAP
+from brotli_tpu.ops import batch_decode
+from brotli_tpu.ops.batch_decode import DecodeJob, bucket, decode_batch
 
 from conftest import FONT, HTML, TEXT
 
@@ -49,8 +50,9 @@ def test_round1_subset_shared_tables():
 
     data = TEXT[:24576]
     streams = encode_sharded(data, chunk_size=2048)
-    _check(streams, [data[i: i + 2048] for i in range(0, len(data), 2048)],
-           sizes=[2048] * len(streams))
+    res = _check(streams,
+                 [data[i: i + 2048] for i in range(0, len(data), 2048)])
+    assert res.relaunched_lanes == 0   # the header gives each lane's size
 
 
 @pytest.mark.parametrize("quality,mode", [(5, 0), (9, 1), (11, 0)])
@@ -185,21 +187,35 @@ def test_output_and_arena_relaunch():
     they need and are relaunched on the device, not sent to the host."""
     data = TEXT[:50000]
     s = brotli_tpu.encode(data, quality=11)
-    res = decode_batch([s, s], interpret=True, sizes=[100, 50000])
+    job = DecodeJob([s, s], interpret=True)
+    assert list(job.caps) == [50000, 50000]
+    job.caps[0] = 100
+    res = job.launch().finish()
     assert res.values() == [data, data]
     assert res.relaunched_lanes == 1 and res.launches == 2
     job = DecodeJob([s], interpret=True)
-    job.arena_caps[:] = 1000
+    job.arena_caps[:] = ARENA_FIXED        # room for no tree
     res = job.launch().finish()
     assert res.values() == [data] and res.relaunched_lanes == 1
+
+
+def test_arena_below_fixed_region_relaunched():
+    """A lane whose arena cannot hold the fixed table region is told to
+    grow before anything is written to it, then to fit its trees."""
+    datas = [TEXT[k * 5000: k * 5000 + 4000] for k in range(6)]
+    job = DecodeJob([brotli_tpu.encode(d, quality=9) for d in datas],
+                    interpret=True)
+    job.arena_caps[:] = 1000
+    res = job.launch().finish()
+    assert res.values() == datas
+    assert res.relaunched_lanes == 12 and res.launches == 3
 
 
 def test_offsets_and_padding_buckets():
     streams = [brotli_tpu.encode(TEXT[k * 700: k * 700 + 300 + 97 * k],
                                  quality=5) for k in range(37)]
     job = DecodeJob(streams, interpret=True)
-    st = stage(job.streams, list(range(37)), job.caps, job.arena_caps,
-               job.cd, False, job.device)
+    st = job.stage_lanes(list(range(37)))
     inp, in_off, out_off, arena_off = (np.asarray(a) for a in st.args[:4])
     assert in_off.shape == (bucket(37, 32) + 1,) == (49,)
     assert inp.size == bucket(in_off[-1] + 8, 1 << 12)
@@ -212,15 +228,6 @@ def test_offsets_and_padding_buckets():
         assert inp[in_off[j]: in_off[j + 1]].tobytes() == streams[i]
     assert [bucket(x) for x in (5, 6, 7, 100, 4096, 5000)] == \
         [6, 6, 8, 128, 4096, 6144]
-
-
-def test_peek_size():
-    d = TEXT[:12345]
-    assert peek_size(brotli_tpu.encode(d, quality=5)) == (12345, True)
-    assert peek_size(bytes([0x3B])) == (0, True)
-    multi = corpus.multi_metablock_stream(TEXT[:40000], 1 << 14)
-    mlen, only = peek_size(multi)
-    assert not only and 0 < mlen <= 1 << 14
 
 
 def test_interpret_false_raises_without_gpu():
@@ -263,9 +270,96 @@ def test_profile_decode_report():
     assert len(phase_report(phases, summary["bytes"]).splitlines()) == 3
 
 
-def test_sizes_validated():
-    s = brotli_tpu.encode(TEXT[:3000], quality=5)
-    with pytest.raises(ValueError):
-        decode_batch([s, s], sizes=[3000], interpret=True)
-    res = decode_batch([s], sizes=[-5], interpret=True)   # clamped, relaunched
-    assert res.values() == [TEXT[:3000]] and res.relaunched_lanes == 1
+def _declares(mlen: int, islast: bool) -> bytes:
+    """A stream whose first metablock header declares `mlen` bytes (and
+    whose content is missing)."""
+    w = BitWriter()
+    nb, val = encode_window_bits(22, False)
+    w.write(nb, val)
+    w.write(1, int(islast))
+    if islast:
+        w.write(1, 0)            # ISLASTEMPTY
+    w.write(2, 2)                # MNIBBLES = 6
+    w.write(24, mlen - 1)
+    if not islast:
+        w.write(1, 1)            # ISUNCOMPRESSED
+    w.align_to_byte()
+    return w.finish() + bytes(16)
+
+
+def test_declared_huge_output_over_max_output_size():
+    """Streams that declare 16 MiB against a 1 MiB limit are rejected with
+    the host's error (-28) without decoding: one by its header alone, one
+    when the device reports the size it needs.  Other lanes decode."""
+    good = brotli_tpu.encode(TEXT[:4000], quality=5)
+    big_last, big_first = _declares(1 << 24, True), _declares(1 << 24, False)
+    assert brotli_tpu.decoded_size(big_last) == 1 << 24
+    res = decode_batch([good, big_last, big_first], interpret=True,
+                       max_output_size=1 << 20)
+    assert res.outputs[0] == TEXT[:4000]
+    for lane in (1, 2):
+        assert res.outputs[lane].code == -28
+        assert res.device_codes[lane] == ERR_OUT_CAP
+    assert res.error_lanes == 2 and res.fallback_lanes == 0
+    assert res.launches == 1 and res.relaunched_lanes == 0
+
+
+def test_lane_over_launch_limit_gets_host_verdict(monkeypatch):
+    """A lane that needs more than one launch may hold is flagged and
+    decoded by the host (a counted fallback); a truncated one gets the
+    host's error.  The batch's other lanes still decode on the device."""
+    monkeypatch.setattr(batch_decode, "LAUNCH_BYTES", 1 << 16)
+    small = [TEXT[k * 3000: k * 3000 + 2500] for k in range(3)]
+    big = TEXT[:100000]
+    multi = TEXT[40000:130000]
+    streams = [brotli_tpu.encode(d, quality=5) for d in small + [big]]
+    streams.append(corpus.multi_metablock_stream(multi, 1 << 13))
+    res = decode_batch(streams + [streams[3][:-40]], interpret=True)
+    assert res.outputs[:5] == small + [big, multi]
+    assert isinstance(res.outputs[5], BrotliError)
+    assert list(res.device_codes[3:]) == [ERR_OUT_CAP] * 3
+    assert res.fallback_lanes == 2 and res.error_lanes == 1
+
+
+@pytest.mark.parametrize("limit", [1 << 13, 1 << 14, 1 << 16])
+def test_launches_split_to_the_limit(monkeypatch, limit):
+    """Lanes are split over launches that each keep their input, output
+    and arena within LAUNCH_BYTES (a lane alone may pass it), and come
+    back in order."""
+    monkeypatch.setattr(batch_decode, "LAUNCH_BYTES", limit)
+    groups = []
+    launch_one = DecodeJob._launch_one
+
+    def spy(job, lanes):
+        groups.append([(len(job.streams[i]) + 8, int(job.caps[i]),
+                        4 * int(job.arena_caps[i])) for i in lanes])
+        launch_one(job, lanes)
+
+    monkeypatch.setattr(DecodeJob, "_launch_one", spy)
+    datas = [TEXT[k * 1000: k * 1000 + 700 + 300 * (k % 4)] for k in range(24)]
+    streams = [brotli_tpu.encode(d, quality=5) for d in datas]
+    job = DecodeJob(streams, interpret=True)
+    job.arena_caps[:] = 1000        # relaunched for the arena they need
+    res = job.launch().finish()
+    assert res.values() == datas
+    assert res.fallback_lanes == res.error_lanes == 0
+    for g in groups:
+        assert len(g) == 1 or max(map(sum, zip(*g))) <= limit
+    assert len(groups) == res.launches >= -(-sum(map(len, datas)) // limit)
+
+
+def test_entry_compile_check():
+    """The compile-check entry decodes its example batch with the CPU
+    build only when asked to, and raises off the GPU otherwise."""
+    import jax
+
+    import __graft_entry__ as graft
+
+    fn, args = graft.entry(interpret=True)
+    _, status = fn(*args)
+    status = np.asarray(status)
+    assert (status[:, 0] == 0).all()
+    assert status[:, 1].sum() == sum(2048 + 512 * k for k in range(32))
+    assert jax.default_backend() != "gpu"
+    with pytest.raises(RuntimeError, match="needs a GPU"):
+        graft.entry()

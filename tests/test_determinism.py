@@ -21,8 +21,9 @@ ALICE = TEXT
 def test_decode_identical_across_group_sizes():
     data = ALICE[:8192]
     streams = encode_sharded(data, chunk_size=1024)
-    a = decode_batches_multichip(streams, get_mesh(2), interpret=True)
-    b = decode_batches_multichip(streams, get_mesh(4), interpret=True)
+    a, b = ([o for r in decode_batches_multichip(streams, get_mesh(n),
+                                                 interpret=True)
+             for o in r.values()] for n in (2, 4))
     c = decode_batch(streams, interpret=True).values()
     assert a == b == c
     assert b"".join(a) == data

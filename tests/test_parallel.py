@@ -14,6 +14,12 @@ from conftest import TEXT
 ALICE = TEXT
 
 
+def _decoded(streams, mesh):
+    """Outputs of the mesh decode in input order."""
+    results = decode_batches_multichip(streams, mesh, interpret=True)
+    return [o for r in results for o in r.values()]
+
+
 def test_mesh_has_8_devices():
     assert get_mesh().devices.size == 8
 
@@ -51,10 +57,10 @@ def test_sharded_decode_over_mesh():
     mesh = get_mesh()
     datas = [ALICE[i * 1500 : (i + 1) * 1500] for i in range(16)]
     streams = [encode(d, quality=1) for d in datas]
-    outs, placed = decode_batches_multichip(streams, mesh, interpret=True,
-                                            return_devices=True)
-    assert outs == datas
-    assert len(set(placed)) == 8
+    results = decode_batches_multichip(streams, mesh, interpret=True)
+    assert [o for r in results for o in r.values()] == datas
+    assert len({r.output_device for r in results}) == 8
+    assert sum(r.fallback_lanes + r.error_lanes for r in results) == 0
 
 
 def test_dictionary_broadcast_replicated():
@@ -69,8 +75,7 @@ def test_multichip_decode_shares_in_order():
 
     data = ALICE[:16384]
     streams = encode_sharded(data, chunk_size=1024)
-    got = decode_batches_multichip(streams, get_mesh(4), interpret=True,
-                                   sizes=[1024] * len(streams))
+    got = _decoded(streams, get_mesh(4))
     assert b"".join(got) == data
 
 
@@ -80,7 +85,7 @@ def test_multichip_mixed_tables_and_sizes():
     # different tables and sizes per stream; fewer streams than devices
     a = brotli_tpu.encode(ALICE[:600], quality=1)
     b = brotli_tpu.encode(bytes(900), quality=9)
-    got = decode_batches_multichip([a, b], get_mesh(4), interpret=True)
+    got = _decoded([a, b], get_mesh(4))
     assert got == [ALICE[:600], bytes(900)]
 
 
@@ -98,7 +103,7 @@ def test_multichip_decode_never_calls_host_decoder(monkeypatch):
     monkeypatch.setattr(dec, "decode", _boom)
     data = ALICE[:16384]
     streams = encode_sharded(data, chunk_size=1024)
-    got = decode_batches_multichip(streams, get_mesh(4), interpret=True)
+    got = _decoded(streams, get_mesh(4))
     assert b"".join(got) == data
 
 
@@ -137,5 +142,5 @@ def test_multichip_static_dictionary_streams():
     streams = [encode(words * 3, quality=11),
                encode(b"information development government " * 2, quality=5)]
     exp = [decode(s) for s in streams]
-    got = decode_batches_multichip(streams, get_mesh(4), interpret=True)
+    got = _decoded(streams, get_mesh(4))
     assert got == exp

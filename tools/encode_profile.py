@@ -10,8 +10,9 @@
    `_pack_jit` module, the match/parse stages `_device_stages_jit`).
 3. Encodes the same input on the CPU backend and compares: total ratio
    (relative difference) and the number of byte-identical streams.
-Every stream is also decoded by the host decoder.  Prints JSON lines with
-the card's name and power limit.  Needs a GPU.
+Every stream is also decoded by the host decoder and by the python golden
+decoder (decode/engine.py), which shares no code with the native decoders.  Prints
+JSON lines with the card's name and power limit.  Needs a GPU.
 """
 
 from __future__ import annotations
@@ -64,6 +65,7 @@ def main() -> None:
 
     import brotli_tpu
     from brotli_tpu import corpus
+    from brotli_tpu.decode.engine import decode as golden_decode
     from brotli_tpu.ops.device_encode import encode_device_batch
     from brotli_tpu.utils.compile_cache import init_compile_cache
 
@@ -107,6 +109,8 @@ def main() -> None:
     for streams in (gpu, cpu):
         if [brotli_tpu.decode(s) for s in streams] != chunks:
             raise SystemExit("encode_profile: host decode mismatch")
+        if [golden_decode(s) for s in streams] != chunks:
+            raise SystemExit("encode_profile: golden decode mismatch")
     r_gpu = sum(map(len, gpu)) / len(data)
     r_cpu = sum(map(len, cpu)) / len(data)
     print(json.dumps({
@@ -114,7 +118,7 @@ def main() -> None:
         "ratio_gpu": r_gpu, "ratio_cpu": r_cpu,
         "ratio_rel_diff": (r_gpu - r_cpu) / r_cpu,
         "identical_lanes": sum(a == b for a, b in zip(gpu, cpu)),
-        "host_decoded_lanes": 2 * len(gpu), **env}), flush=True)
+        "host_and_golden_decoded_lanes": 2 * len(gpu), **env}), flush=True)
 
 
 if __name__ == "__main__":
